@@ -1,14 +1,15 @@
-"""chestxray_vit_tpu — a TPU-native (JAX/XLA/Pallas/pjit) framework for
-multi-label chest X-ray classification with Vision Transformers.
+"""chestxray_vit_tpu — a JAX framework for multi-label chest X-ray
+classification with Vision Transformers, run on NVIDIA GPUs.
 
 Built from scratch with the capabilities of the reference pipeline
 (Sam1rShaban1/Chest-X-Ray-ViT: a torch_xla / HF-Trainer fine-tuning script for
-google/vit-base-patch16-384 on NIH ChestX-ray14), re-designed TPU-first:
+google/vit-base-patch16-384 on NIH ChestX-ray14):
 
 - single-process SPMD data parallelism over a ``jax.sharding.Mesh`` (the
   reference forks 8 processes via ``xmp.spawn``, ViT-Training.py:170),
-- a from-scratch ViT with a Pallas flash-attention kernel (the reference
-  delegates to HF ``ViTForImageClassification``, ViT-Training.py:83),
+- a from-scratch ViT whose attention runs as cuDNN fused attention on a
+  GPU (the reference delegates to HF ``ViTForImageClassification``,
+  ViT-Training.py:83),
 - a host-overlap prefetching input pipeline with device-side fused
   preprocessing (the reference decodes per-sample with PIL inside
   ``Dataset.__getitem__`` and creates a fresh GCS client per item),
@@ -39,8 +40,7 @@ _LAZY = {
     "TrainState": ("chestxray_vit_tpu.train.steps", "TrainState"),
     "build_mesh": ("chestxray_vit_tpu.parallel.mesh", "build_mesh"),
     "build_datasets": ("chestxray_vit_tpu.data.pipeline", "build_datasets"),
-    "flash_attention": ("chestxray_vit_tpu.ops.flash_attention",
-                        "flash_attention"),
+    "attention": ("chestxray_vit_tpu.ops.attention", "attention"),
 }
 
 

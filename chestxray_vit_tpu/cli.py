@@ -205,13 +205,13 @@ def cmd_quantize(argv: List[str]) -> int:
                     help="artifact directory (default "
                          "<model-dir>/quantized)")
     ap.add_argument("--compilation-cache", default=None,
-                    help="persistent XLA compile cache dir (the "
-                         "calibration forward skips recompiles)")
+                    help="persistent XLA compile cache dir (default: "
+                         "$JAX_COMPILATION_CACHE_DIR, else "
+                         "<checkout>/.xla_cache)")
     ns = ap.parse_args(argv)
-    if ns.compilation_cache:
-        from chestxray_vit_tpu.utils.compilation_cache import (
-            enable_compilation_cache)
-        enable_compilation_cache(ns.compilation_cache)
+    from chestxray_vit_tpu.utils.compilation_cache import (
+        enable_compilation_cache)
+    enable_compilation_cache(ns.compilation_cache)
 
     import jax
 

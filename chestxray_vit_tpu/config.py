@@ -39,6 +39,10 @@ PROCESSOR_STD: Tuple[float, float, float] = (0.5, 0.5, 0.5)
 VIT_MEAN: Tuple[float, float, float] = (0.485, 0.456, 0.406)
 VIT_STD: Tuple[float, float, float] = (0.229, 0.224, 0.225)
 
+# ModelConfig.attention_impl values (ops/attention.py): 'auto' takes cuDNN
+# fused attention on a GPU and XLA elsewhere; 'cudnn' and 'xla' force one.
+ATTENTION_IMPLS: Tuple[str, ...] = ("auto", "cudnn", "xla")
+
 # The canonical NIH ChestX-ray14 class vocabulary produced by the reference's
 # label engine (pyc L152-L157): 14 pathologies + 'No Finding', sorted.
 NIH_CLASSES: Tuple[str, ...] = (
@@ -124,7 +128,7 @@ class DataConfig:
     # Where the crop/pad/resize/normalize chain runs (SURVEY §3.3):
     # 'host' resizes on the CPU and ships u8 384² grayscale (fewest
     # host→device bytes); 'device' ships the raw decode canvas + crop box
-    # and runs the fused MXU kernel inside the train step's jit (fewest
+    # and runs the fused matmul preprocess inside the train step's jit (fewest
     # host CPU cycles — the right trade when decode threads are the
     # bottleneck).
     preprocess_placement: str = "host"      # 'host' | 'device'
@@ -150,9 +154,9 @@ class ModelConfig:
     mlp_dim: int = 3072
     num_classes: int = 15           # NUM_CLASSES (pyc L174): 14 + No Finding
     layernorm_eps: float = 1e-12    # HF ViTConfig default
-    # HF ViT uses EXACT erf GELU; the tanh approximation is ~13 ms/step
-    # cheaper on v5e (erf's f32 polynomial is pure VPU cost) at ~1e-3
-    # activation error — opt-in for from-scratch training, OFF for parity.
+    # HF ViT uses EXACT erf GELU; the tanh approximation trades ~1e-3
+    # activation error for a cheaper polynomial — opt-in for from-scratch
+    # training, OFF for parity.
     gelu_approximate: bool = False
     hidden_dropout: float = 0.0
     attention_dropout: float = 0.0
@@ -160,18 +164,18 @@ class ModelConfig:
     # reference, pyc L7); master params stay float32.
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    # Gradient checkpointing (BASELINE.json configs[2], ViT-L path).
+    # Gradient checkpointing.
     remat: bool = False
     # 'full' recomputes the whole block in backward; 'mlp' saves everything
     # except the 4×-wide MLP hidden activations (cheapest recompute, biggest
     # single memory term); 'dots' saves matmul outputs only.
     remat_policy: str = "full"
-    # Use the Pallas flash-attention kernel on TPU ('auto' falls back to the
-    # XLA reference implementation on CPU).
-    attention_impl: str = "auto"    # 'auto' | 'pallas' | 'xla'
+    # One of ATTENTION_IMPLS: 'auto' runs cuDNN fused attention on a GPU
+    # and the XLA reference implementation elsewhere (ops/attention.py).
+    attention_impl: str = "auto"
     # Fuse the three [D, D] Q/K/V projections into one [D, 3D] matmul
     # (weights stacked once per step outside the scan; numerics identical).
-    # Opt-in pending measurement — see BENCH_NOTES.md.
+    # Opt-in pending measurement.
     fused_qkv: bool = False
     # Token merging DURING training (and in the matching train-time eval):
     # merge the r most-similar token pairs after every layer's attention
@@ -180,7 +184,7 @@ class ModelConfig:
     # construction, so gradients flow through the size-weighted means;
     # the bipartite matching itself is piecewise-constant (no gradient),
     # exactly like the paper's formulation. 0 = off (the reference's
-    # semantics). Quality/speed tradeoff knob — see BENCH_NOTES.md.
+    # semantics). Quality/speed tradeoff knob — see README "Quality".
     tome_r: int = 0
     # Per-layer distribution of the merge budget: 'constant' (r pairs in
     # every layer, the paper's default) or 'decreasing' (linearly decaying
@@ -214,6 +218,10 @@ class ModelConfig:
             raise ValueError(
                 f"hidden_size {self.hidden_size} is not divisible by "
                 f"num_heads {self.num_heads}")
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"model.attention_impl must be one of {ATTENTION_IMPLS}, got "
+                f"{self.attention_impl!r}")
         if self.tome_schedule not in ("constant", "decreasing"):
             raise ValueError(
                 f"model.tome_schedule must be 'constant' or 'decreasing', "
@@ -256,7 +264,7 @@ def vit_variant_config(variant: str, img_size: int = 384,
 
 
 def vit_large_config(img_size: int = 384, num_classes: int = 15) -> ModelConfig:
-    """ViT-L/16 (BASELINE.json configs[2])."""
+    """ViT-L/16."""
     return vit_variant_config("vit_l16", img_size, num_classes)
 
 
@@ -300,9 +308,11 @@ class TrainConfig:
 
     bf16: bool = True                       # (pyc L444; .py:105)
     # Persistent XLA compilation cache directory (beyond the reference,
-    # whose torch_xla recompiles lazily every run): when set, compiled
-    # executables are cached on disk so restarts/resumes skip the 20-40s
-    # first-compile of the train/eval steps. Works with gs:// paths too.
+    # whose torch_xla recompiles lazily every run): compiled executables
+    # are cached on disk so restarts/resumes skip the first compile of the
+    # train/eval steps. JAX_COMPILATION_CACHE_DIR, when set, wins; None
+    # means <checkout>/.xla_cache (utils/compilation_cache.py). Works with
+    # gs:// paths too.
     compilation_cache_dir: Optional[str] = None
     # Preemption safety (beyond the reference, whose dead worker kills the
     # job, SURVEY §5): SIGTERM/SIGINT triggers one final checkpoint before
@@ -316,9 +326,9 @@ class TrainConfig:
     # split (max per-class F1) instead of the reference's fixed 0.5
     # before writing the test classification report.
     calibrate_thresholds: bool = False
-    # Run eval/predict forwards on the int8 MXU path (beyond the
-    # reference; measured +28% over bf16 at b64 — BENCH_NOTES "Round 3:
-    # int8"). 'static' calibrates per-site activation scales on the first
+    # Run eval/predict forwards on the int8 matmul path (beyond the
+    # reference; speed on the H100 not measured yet). 'static' calibrates
+    # per-site activation scales on the first
     # batch of each evaluated split; 'dynamic' uses per-token scales
     # (accuracy-safest, slower). Training STEPS always stay bf16; every
     # evaluate()/predict() forward — including mid-training cadence evals,
@@ -336,7 +346,7 @@ class TrainConfig:
     # requires model.tome_r > 0): train the first `tome_warmup` steps
     # with the DENSE step function, then switch merging on — params and
     # LR schedule are continuous across the switch (merging is
-    # parameter-free). Motivation (BENCH_NOTES "Dense-warmup rescue"):
+    # parameter-free). Motivation (README "Quality", BENCH_QUALITY_AB.jsonl):
     # merged training's measured init-sensitivity is an early-training
     # artifact — on the bad-mode init, a warmup through the dense
     # takeoff window recovered 0.821 -> 0.977 avg_auroc, within ~1.5 pts
@@ -362,7 +372,7 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """Device-mesh layout. The reference is pure data-parallel over 8 TPU
+    """Device-mesh layout. The reference is pure data-parallel over 8
     cores (xmp.spawn, pyc L515); here DP rides a named mesh axis so the same
     step function scales to multi-host and to fsdp/tensor axes later."""
 
@@ -371,11 +381,11 @@ class MeshConfig:
     fsdp: int = 1
     tensor: int = 1
     axis_names: Tuple[str, ...] = ("data", "fsdp", "tensor")
-    # number of TPU slices (multi-slice / Multislice training). > 1 adds a
-    # leading 'dcn' mesh axis carrying pure data parallelism across slices:
-    # the only cross-slice collective is the per-step gradient all-reduce,
-    # which is the DCN-friendly layout (fsdp/tensor stay within-slice, on
-    # ICI). 1 = single slice, no extra axis.
+    # number of device groups joined by the slower data-center network
+    # (e.g. hosts). > 1 adds a leading 'dcn' mesh axis carrying pure data
+    # parallelism across groups: the only cross-group collective is the
+    # per-step gradient all-reduce (fsdp/tensor stay within a group, on the
+    # fast interconnect). 1 = one group, no extra axis.
     dcn_data: int = 1
 
 
@@ -455,27 +465,25 @@ def version_a_config() -> Config:
 
 
 def fast_finetune_config() -> Config:
-    """The measured-best TRAIN recipe as one flag (VERDICT r4 next #2):
-    version_b's optimization surface plus the chip-measured throughput
-    levers — batch 36/chip (the measured dense sweet spot), full
-    gradient checkpointing, and differentiable token merging with the
-    decreasing schedule (BENCH_NOTES "tome_schedule=decreasing": r=32
-    decreasing = 494.5 img/s/chip, 2.1x the dense step; r=16 = 355.7).
+    """The token-merging TRAIN recipe as one flag: version_b's
+    optimization surface plus batch 36/chip, full gradient checkpointing,
+    and differentiable token merging with the decreasing schedule. The
+    batch and remat choice were sized for a 16 GB accelerator and have not
+    been re-swept on the H100's 80 GB (ROADMAP Speed item 5).
 
     Ships with tome_r=16 decreasing AND a 37.5% dense warmup
     (train.tome_warmup=0.375 — fraction of total steps). Why the warmup
-    is part of the recipe (BENCH_NOTES "Dense-warmup rescue", gated in
-    tests/test_quality_band.py): merged training without it is
+    is part of the recipe (convergence data in BENCH_QUALITY_AB.jsonl,
+    gated in tests/test_quality_band.py): merged training without it is
     INIT-SENSITIVE at every measured budget (bad-mode inits flatten at
     the ~0.82 easy-class floor vs dense 0.99 on the hard synthetic
     task); training dense through the takeoff window rescues every
     measured (budget, init) cell to within ~1.8 pts of dense — at the
     preset budget, r16 on the bad init went 0.8174 -> 0.9919. The
     warmup is a fixed fraction, so longer fine-tunes amortize it toward
-    the full merged rate. r=16 over the faster r=32 (2.1x): equal
-    measured floors, but the smaller budget discards strictly less
-    information. Validation on real data:
-    `examples/finetune_nih.py --expect-tome-band`."""
+    the full merged rate. r=16 over r=32: equal measured floors, but the
+    smaller budget discards strictly less information. Validation on
+    real data: `examples/finetune_nih.py --expect-tome-band`."""
     cfg = version_b_config()
     cfg.model.remat = True
     cfg.model.tome_r = 16

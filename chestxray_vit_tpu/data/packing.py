@@ -1,8 +1,8 @@
-"""NaViT-style packed variable-resolution batching (BASELINE configs[4]).
+"""NaViT-style packed variable-resolution batching.
 
 Multiple images of different resolutions share one token sequence,
-isolated by segment ids and block-diagonal flash attention
-(``flash_attention_packed``). Static shapes throughout: sequences are
+isolated by segment ids and block-diagonal attention
+(``ops.attention.attention(segment_ids=...)``). Static shapes throughout: sequences are
 ``seq_len`` tokens, shorter packs are padded with segment id -1.
 
 Host side (this module): greedy first-fit packing, per-image resize to its

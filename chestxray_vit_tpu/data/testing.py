@@ -73,7 +73,7 @@ def render_array_dataset(
     saturates AUROC≈1.0 in a few hundred steps, which makes it useless for
     *quality* A/Bs (any lossy accelerator also scores 1.0). This variant is
     deliberately harder so fidelity differences are measurable (the
-    token-merging convergence A/B, VERDICT r4 next #1):
+    token-merging convergence A/B):
 
     - blocks are small (default ~1.5 patches at 384/16) and low-contrast
       (``contrast`` added onto the 20..60 noise background, not set to 220);

@@ -1,10 +1,10 @@
-"""int8 forward INSIDE the train step (exploratory — VERDICT r3 next #3).
+"""int8 forward INSIDE the train step (exploratory).
 
-The serving rounds proved static-scale int8 keeps the 1.46× int8 MXU
-rate end-to-end (+28% forward, BENCH_NOTES "Round 3: int8"). This module
-points that lever at the hot loop the reference actually runs
-(ViT-Training.py:132): the forward half of the train step computes every
-large projection on the int8 MXU path while the backward stays bf16 via
+Static-scale int8 is the serving path's quantized forward
+(``models/quantized.py``). This module points that lever at the hot loop
+the reference actually runs (ViT-Training.py:132): the forward half of the
+train step computes every large projection as an int8 matmul while the
+backward stays bf16 via
 a straight-through estimator — the standard quantization-aware-training
 gradient (Bengio et al. 2013; round-trip quantization is
 piecewise-constant, so its "gradient" is taken as identity):
@@ -21,10 +21,9 @@ piecewise-constant, so its "gradient" is taken as identity):
   masters exactly as in the dense step (grad-cosine pinned in
   tests/test_int8_train.py).
 
-Under full remat the backward RECOMPUTES this int8 forward, so the MXU
-dividend applies to half of all matmul passes. Keep/no-go is decided by
-measurement (tools/int8_train_probe.py); the Trainer wires it only if
-the chip says keep.
+Under full remat the backward RECOMPUTES this int8 forward, so an int8
+rate advantage applies to half of all matmul passes. The Trainer does not
+wire it; whether it pays on the H100 is not measured.
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ import jax.numpy as jnp
 
 from chestxray_vit_tpu.config import ModelConfig
 from chestxray_vit_tpu.models import vit
+from chestxray_vit_tpu.ops.attention import attention
 from chestxray_vit_tpu.ops.gelu import gelu as _gelu
 from chestxray_vit_tpu.ops.quant import int8_matmul_static, quantize_weight
 
@@ -47,7 +47,7 @@ def int8_linear_ste(x: jax.Array, kernel: jax.Array, bias: jax.Array,
     """y = int8(x/sx) · int8(W/sw) rescaled + b, with dense bf16 backward.
 
     Forward: per-output-channel weight quantize (from the live master) +
-    static-scale activation quantize + one int8 MXU contraction
+    static-scale activation quantize + one int8 contraction
     (``ops.quant.int8_matmul_static``). Backward: the straight-through
     estimator — gradients of the DENSE linear y = xW + b, computed in
     ``out_dtype`` like the plain training step. ``x_scale`` is a
@@ -128,30 +128,8 @@ def apply_int8_train(params: Params, images: jax.Array, cfg: ModelConfig,
         q = heads(proj(a_in, bp, "wq", "attn_in"))
         k = heads(proj(a_in, bp, "wk", "attn_in"))
         v = heads(proj(a_in, bp, "wv", "attn_in"))
-        attn_drop = (train and cfg.attention_dropout > 0.0
-                     and sub is not None)
-        from chestxray_vit_tpu.ops.flash_attention import (
-            attention,
-            flash_attention_dropout,
-            use_pallas,
-        )
-        if attn_drop and use_pallas(cfg.attention_impl):
-            from chestxray_vit_tpu.ops.flash_attention import (
-                auto_block_q)
-            o = flash_attention_dropout(
-                q, k, v, vit._dropout_seed(sub, 2),
-                cfg.attention_dropout, None, auto_block_q(q.shape[2]))
-        elif attn_drop:
-            scores = jnp.einsum("bhqd,bhkd->bhqk", q, k,
-                                preferred_element_type=jnp.float32
-                                ) / (hd ** 0.5)
-            probs = jax.nn.softmax(scores, axis=-1)
-            probs = vit._dropout(probs, cfg.attention_dropout, sub,
-                                 train, 2)
-            o = jnp.einsum("bhqk,bhkd->bhqd", probs.astype(v.dtype), v)
-        else:
-            o = attention(q, k, v, impl=cfg.attention_impl,
-                          inference=not train)
+        o = attention(q, k, v, impl=cfg.attention_impl,
+                      **vit.attention_dropout_args(cfg, sub, train))
         bsz, _, s, _ = o.shape
         merged = o.transpose(0, 2, 1, 3).reshape(bsz, s, h * hd)
         attn_out = proj(merged, bp, "wo", "attn_out")

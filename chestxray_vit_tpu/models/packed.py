@@ -1,8 +1,8 @@
-"""Packed variable-resolution ViT forward (BASELINE configs[4]).
+"""Packed variable-resolution ViT forward.
 
 Runs the standard ViT encoder weights over NaViT-style packed sequences
 (``data/packing.py``): several images per sequence, isolated by
-segment-masked flash attention; per-image masked mean pooling replaces the
+segment-masked attention; per-image masked mean pooling replaces the
 CLS token (padding and neighbor images contribute nothing — tested). The
 position table concatenates bicubic re-interpolations of the pretrained
 [1, S, D] embedding for every allowed grid, so @384-pretrained weights serve
@@ -19,10 +19,7 @@ import jax.numpy as jnp
 
 from chestxray_vit_tpu.config import ModelConfig
 from chestxray_vit_tpu.models import vit
-from chestxray_vit_tpu.ops.flash_attention import (
-    attention_xla_packed,
-    flash_attention_packed,
-)
+from chestxray_vit_tpu.ops.attention import attention
 from chestxray_vit_tpu.ops.gelu import gelu as _gelu
 
 
@@ -49,37 +46,8 @@ def _packed_mha(x, bp, cfg: ModelConfig, seg_ids, dropout_rng=None,
                 + p["bias"].reshape(h, 1, hd))
 
     q, k, v = heads(bp["wq"]), heads(bp["wk"]), heads(bp["wv"])
-    attn_drop = (train and cfg.attention_dropout > 0.0
-                 and dropout_rng is not None)
-    from chestxray_vit_tpu.ops.flash_attention import (
-        use_pallas as _use_pallas)
-    use_pallas = _use_pallas(cfg.attention_impl)
-    # 384-row Q blocks when they tile the padded sequence (the 1152-token
-    # packed config): fewer dK/dV accumulation revisits, measured faster
-    # than 128-row blocks on the dense 1025-token path (BENCH_NOTES.md)
-    s_pad = ((s + 127) // 128) * 128
-    block_q = 384 if s_pad % 384 == 0 else 128
-    if attn_drop and use_pallas:
-        # HF semantics (dropout on the softmax probabilities), fused: the
-        # Bernoulli mask is generated inside the segment kernel
-        from chestxray_vit_tpu.ops.flash_attention import (
-            flash_attention_packed_dropout)
-        o = flash_attention_packed_dropout(
-            q, k, v, seg_ids, vit._dropout_seed(dropout_rng, 2),
-            cfg.attention_dropout, None, block_q)
-    elif attn_drop:
-        # off-TPU fallback: materialized probabilities + jax.random dropout
-        scores = jnp.einsum("bhqd,bhkd->bhqk", q, k,
-                            preferred_element_type=jnp.float32) / (hd ** 0.5)
-        mask = seg_ids[:, None, :, None] == seg_ids[:, None, None, :]
-        probs = jax.nn.softmax(jnp.where(mask, scores, -1e30), axis=-1)
-        probs = vit._dropout(probs, cfg.attention_dropout, dropout_rng,
-                             train, 2)
-        o = jnp.einsum("bhqk,bhkd->bhqd", probs.astype(v.dtype), v)
-    elif use_pallas:
-        o = flash_attention_packed(q, k, v, seg_ids, None, block_q)
-    else:
-        o = attention_xla_packed(q, k, v, seg_ids)
+    o = attention(q, k, v, impl=cfg.attention_impl, segment_ids=seg_ids,
+                  **vit.attention_dropout_args(cfg, dropout_rng, train))
     # heads-merge folded into the output projection
     out = (jnp.einsum("bhsk,hkd->bsd", o, bp["wo"]["kernel"].reshape(h, hd, d))
            + bp["wo"]["bias"])
@@ -149,8 +117,8 @@ def apply_packed_tome(params, tokens: jax.Array, segment_ids: jax.Array,
                       cfg: ModelConfig, grids: Sequence[int] = (16, 24, 32),
                       *, train: bool = False, rng=None) -> jax.Array:
     """Packed forward with WITHIN-SEGMENT token merging (``model.tome_r``
-    on the packed path — extends the measured train lever to
-    variable-resolution training; VERDICT r4 next #7).
+    on the packed path — extends the token-merging train lever to
+    variable-resolution training).
 
     The packed counterpart of ``tome_forward.apply_tome_train``: after
     every attention block, ``ops.tome.tome_merge_packed`` merges the r_l

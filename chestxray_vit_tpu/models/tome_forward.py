@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from chestxray_vit_tpu.config import ModelConfig
 from chestxray_vit_tpu.models import vit
 from chestxray_vit_tpu.models.quantized import _SITE_OF, embed_tokens
+from chestxray_vit_tpu.ops.attention import attention
 from chestxray_vit_tpu.ops.gelu import gelu as _gelu
 from chestxray_vit_tpu.ops.quant import int8_matmul, int8_matmul_static
 from chestxray_vit_tpu.ops.tome import r_schedule, tome_merge
@@ -58,17 +59,15 @@ def apply_tome_train(params: Params, images: jax.Array, cfg: ModelConfig,
 
     ``int8_scales`` (a ``calibrate_vit_scales`` tree) composes the two
     train accelerators: every projection runs the int8 straight-through
-    path (``models/int8_train.int8_linear_ste`` — int8 MXU forward, dense
+    path (``models/int8_train.int8_linear_ste`` — int8 forward, dense
     bf16 backward) INSIDE the merged-token forward. Dispatched from
     ``train.steps.make_train_step(int8_scales=...)`` when ``cfg.tome_r``
-    is also set — previously that combination silently trained un-merged
-    (VERDICT r4 weak #3).
+    is also set — previously that combination silently trained un-merged.
     """
     if r <= 0:
         raise ValueError(f"tome r={r} must be positive")
     if cfg.fused_qkv:
-        raise ValueError("model.fused_qkv does not compose with tome_r "
-                         "(and measured slower anyway — BENCH_NOTES.md)")
+        raise ValueError("model.fused_qkv does not compose with tome_r")
     compute_dtype = jnp.dtype(cfg.dtype)
     if int8_scales is None:
         x = vit.embed(params, images, cfg, compute_dtype)
@@ -77,7 +76,7 @@ def apply_tome_train(params: Params, images: jax.Array, cfg: ModelConfig,
         from chestxray_vit_tpu.models.int8_train import int8_linear_ste
 
         # int8-STE patch embed, mirroring apply_int8_train (one
-        # [B·N, p²·3]×[p²·3, D] matmul on the int8 MXU path)
+        # [B·N, p²·3]×[p²·3, D] int8 matmul)
         patches = vit.patchify(images.astype(jnp.float32), cfg.patch_size)
         pe = params["patch_embed"]
         x = int8_linear_ste(patches, pe["kernel"].astype(jnp.float32),
@@ -161,29 +160,10 @@ def apply_tome_train(params: Params, images: jax.Array, cfg: ModelConfig,
 
 
 def _tome_int8_attention(q, k, v, cfg: ModelConfig, sub, train: bool):
-    """Attention for the int8+tome composed block: same dropout dispatch
-    as ``apply_int8_train``'s scan body (fused Pallas mask on TPU, XLA
-    probabilities dropout elsewhere, forward-only kernel at eval)."""
-    from chestxray_vit_tpu.ops.flash_attention import attention, use_pallas
-
-    attn_drop = train and cfg.attention_dropout > 0.0 and sub is not None
-    if attn_drop and use_pallas(cfg.attention_impl):
-        from chestxray_vit_tpu.ops.flash_attention import (
-            auto_block_q,
-            flash_attention_dropout,
-        )
-        return flash_attention_dropout(
-            q, k, v, vit._dropout_seed(sub, 2), cfg.attention_dropout,
-            None, auto_block_q(q.shape[2]))
-    if attn_drop:
-        scores = jnp.einsum("bhqd,bhkd->bhqk", q, k,
-                            preferred_element_type=jnp.float32
-                            ) / (cfg.head_dim ** 0.5)
-        probs = jax.nn.softmax(scores, axis=-1)
-        probs = vit._dropout(probs, cfg.attention_dropout, sub, train, 2)
-        return jnp.einsum("bhqk,bhkd->bhqd", probs.astype(v.dtype), v)
+    """Attention for the int8+tome composed block (same dispatch as
+    ``vit._mha``: materialised only under attention dropout)."""
     return attention(q, k, v, impl=cfg.attention_impl,
-                     inference=not train)
+                     **vit.attention_dropout_args(cfg, sub, train))
 
 
 def apply_tome(params: Params, images: jax.Array, cfg: ModelConfig,
@@ -234,8 +214,7 @@ def apply_tome(params: Params, images: jax.Array, cfg: ModelConfig,
         q = heads(proj(a_in, bp, "wq"))
         k = heads(proj(a_in, bp, "wk"))
         v = heads(proj(a_in, bp, "wv"))
-        from chestxray_vit_tpu.ops.flash_attention import attention
-        o = attention(q, k, v, impl=cfg.attention_impl, inference=True)
+        o = attention(q, k, v, impl=cfg.attention_impl)
         bsz, _, s, _ = o.shape
         merged = o.transpose(0, 2, 1, 3).reshape(bsz, s, h * hd)
         x = x + proj(merged, bp, "wo")

@@ -3,14 +3,15 @@
 The reference delegates its entire model to HF
 ``ViTForImageClassification.from_pretrained('google/vit-base-patch16-384')``
 (/root/reference/ViT-Training.py:83-90; pyc L381-L386). This module rebuilds
-that architecture TPU-first:
+that architecture in functional JAX:
 
 - the 16×16 conv patch-embed becomes a single patch-extract reshape + matmul
-  (conv-as-matmul keeps the FLOPs on the MXU with no im2col materialization),
+  (conv-as-matmul, no im2col materialization),
 - the encoder stack runs under ``lax.scan`` over stacked per-layer params
   (one compiled block trace instead of 12/24, with optional
   ``jax.checkpoint`` rematerialization for ViT-L),
-- attention dispatches to the Pallas flash kernel on TPU,
+- attention goes through ``ops/attention.attention`` (cuDNN fused
+  attention on a GPU, XLA elsewhere),
 - bf16 activations with f32 LayerNorm/softmax; master params stay f32.
 
 Numerics match HF exactly in f32: erf GELU, LayerNorm eps 1e-12, pre-LN
@@ -26,11 +27,7 @@ import jax.ad_checkpoint
 import jax.numpy as jnp
 
 from chestxray_vit_tpu.config import ModelConfig
-from chestxray_vit_tpu.ops.flash_attention import (
-    attention,
-    attention_xla,
-    auto_block_q as _auto_block_q,
-)
+from chestxray_vit_tpu.ops.attention import attention, attention_probs
 from chestxray_vit_tpu.ops.gelu import gelu as _gelu
 from chestxray_vit_tpu.ops.layer_norm import layer_norm as _layer_norm_op
 
@@ -119,12 +116,6 @@ def embed(params: Params, images: jax.Array, cfg: ModelConfig,
     return x + params["pos_embed"].astype(compute_dtype)
 
 
-def _dropout_seed(rng: jax.Array, salt: int) -> jax.Array:
-    """int32 [1] per-step seed for the in-kernel dropout counter hash."""
-    bits = jax.random.bits(jax.random.fold_in(rng, salt), (1,), "uint32")
-    return jax.lax.bitcast_convert_type(bits, jnp.int32)
-
-
 def _mha(x: jax.Array, bp: Params, cfg: ModelConfig,
          attn_impl: str, return_probs: bool = False,
          dropout_rng: Optional[jax.Array] = None, train: bool = False,
@@ -132,11 +123,9 @@ def _mha(x: jax.Array, bp: Params, cfg: ModelConfig,
     """Multi-head attention, pre-LN input already applied.
 
     ``attention_dropout`` (HF ViTSelfAttention semantics: dropout on the
-    softmax probabilities) stays on the fused Pallas path — the Bernoulli
-    mask is generated inside the kernel (fwd and bwd replay the same
-    counter hash), so nonzero rates compile at production batch. Off-TPU
-    the unfused XLA path applies jax.random dropout to the materialized
-    probabilities (a different — equally valid — mask stream).
+    softmax probabilities) runs on the materialised XLA path with
+    ``jax.random`` masks (``ops/attention.py``); ``return_probs`` also
+    materialises, since the probabilities are the product.
 
     ``return_key_mean`` additionally returns the head-mean of the keys
     [B, S, head_dim] — the token-merging similarity metric (ToMe §3:
@@ -167,29 +156,12 @@ def _mha(x: jax.Array, bp: Params, cfg: ModelConfig,
         k = name(heads(bp["wk"]), "attn_heads")
         v = name(heads(bp["wv"]), "attn_heads")
     probs = None
-    attn_drop = (train and cfg.attention_dropout > 0.0
-                 and dropout_rng is not None)
-    from chestxray_vit_tpu.ops.flash_attention import (
-        use_pallas as _use_pallas)
-    use_pallas = _use_pallas(attn_impl)
-    if attn_drop and use_pallas and not return_probs:
-        from chestxray_vit_tpu.ops.flash_attention import (
-            flash_attention_dropout)
-        o = flash_attention_dropout(
-            q, k, v, _dropout_seed(dropout_rng, 2),
-            cfg.attention_dropout, None, _auto_block_q(s))
-    elif return_probs or attn_drop:
-        scores = jnp.einsum("bhqd,bhkd->bhqk", q, k,
-                            preferred_element_type=jnp.float32) / (hd ** 0.5)
-        probs = jax.nn.softmax(scores, axis=-1)
-        if attn_drop:
-            probs = _dropout(probs, cfg.attention_dropout, dropout_rng,
-                             train, 2)
+    if return_probs:
+        probs = attention_probs(q, k)
         o = jnp.einsum("bhqk,bhkd->bhqd", probs.astype(v.dtype), v)
     else:
-        # eval/serving (train=False) takes the forward-only kernel — no
-        # lse residual write; bit-identical outputs
-        o = attention(q, k, v, impl=attn_impl, inference=not train)
+        o = attention(q, k, v, impl=attn_impl,
+                      **attention_dropout_args(cfg, dropout_rng, train))
     # fold the heads-merge transpose into the output projection
     out = (jnp.einsum("bhsk,hkd->bsd", o,
                       bp["wo"]["kernel"].reshape(h, hd, d))
@@ -219,6 +191,16 @@ def _block(x: jax.Array, bp: Params, cfg: ModelConfig, attn_impl: str,
     return x + mlp_out
 
 
+def attention_dropout_args(cfg: ModelConfig, rng: Optional[jax.Array],
+                           train: bool) -> Dict[str, Any]:
+    """:func:`attention` keyword arguments for ``cfg.attention_dropout``
+    (salt 2 of the block's key; none outside training)."""
+    if not train or cfg.attention_dropout == 0.0 or rng is None:
+        return {}
+    return {"dropout_rate": cfg.attention_dropout,
+            "dropout_rng": jax.random.fold_in(rng, 2)}
+
+
 def _dropout(x, rate, rng, train, salt):
     if not train or rate == 0.0 or rng is None:
         return x
@@ -237,21 +219,14 @@ def remat_policy(cfg: ModelConfig):
         return jax.checkpoint_policies.save_anything_except_these_names(
             "mlp_hidden")
     if cfg.remat_policy == "attn":
-        # recompute only the attention internals (qkv heads + flash
-        # kernel residuals) — ~11% extra FLOPs vs full remat's ~33%
+        # recompute only the per-head Q/K/V projections
         return jax.checkpoint_policies.save_anything_except_these_names(
-            "flash_residual", "attn_heads")
+            "attn_heads")
     if cfg.remat_policy == "attn_mlp":
         # also recompute the 4×-wide GELU hidden — the two biggest
         # residual classes dropped, everything else saved
         return jax.checkpoint_policies.save_anything_except_these_names(
-            "flash_residual", "attn_heads", "mlp_hidden")
-    if cfg.remat_policy == "flash_out":
-        # full remat EXCEPT the flash kernel outputs (~60 MB/layer at
-        # ViT-B b64): backward skips re-running the forward attention
-        # kernel — the costliest recompute in the block — while
-        # everything else stays rematerialized
-        return jax.checkpoint_policies.save_only_these_names("flash_out")
+            "attn_heads", "mlp_hidden")
     if cfg.remat_policy == "dots":
         return jax.checkpoint_policies.checkpoint_dots
     return None
@@ -363,9 +338,9 @@ def head_logits(params: Params, tokens: jax.Array,
 def apply_with_attention(params: Params, images: jax.Array,
                          cfg: ModelConfig) -> Tuple[jax.Array, jax.Array]:
     """Forward pass that also returns per-layer attention probabilities
-    [L, B, H, S, S] for attention-rollout map extraction (serving path,
-    BASELINE.json configs[3]). Uses the unfused XLA attention since the
-    probabilities themselves are the product."""
+    [L, B, H, S, S] for attention-rollout map extraction (serving path).
+    Uses the unfused XLA attention since the probabilities themselves are
+    the product."""
     compute_dtype = jnp.dtype(cfg.dtype)
     x = embed(params, images, cfg, compute_dtype)
     all_probs = []

@@ -1,13 +1,13 @@
 """Fast exact-erf GELU.
 
 HF ViT uses exact erf GELU (not the tanh approximation). XLA's ``lax.erf``
-lowers to a long f32 rational on TPU — measured ~13 ms of the ViT-B b64
-forward pass. This implementation uses the Abramowitz–Stegun 7.1.26
-polynomial (|ε| ≤ 1.5e-7 vs true erf; measured ≤ 2.7e-6 vs ``lax.erf`` in
-f32) with the exponential on the hardware ``exp2`` path: ~10 fused
-elementwise ops, saving ~10 ms of that forward at accuracy three orders of
+lowers to a long f32 rational. This implementation uses the
+Abramowitz–Stegun 7.1.26 polynomial (|ε| ≤ 1.5e-7 vs true erf; measured
+≤ 2.7e-6 vs ``lax.erf`` in f32) with the exponential on the hardware
+``exp2`` path: ~10 fused elementwise ops, at accuracy three orders of
 magnitude below the 1e-4 HF logit-parity gate (pinned against torch in
-tests/test_vit_parity.py and tests/test_gelu.py).
+tests/test_vit_parity.py and tests/test_gelu.py). Whether it beats
+``lax.erf`` on the H100 is not measured yet (ROADMAP Speed item 8).
 """
 
 from __future__ import annotations

@@ -1,21 +1,13 @@
-"""Memory-lean LayerNorm with a custom VJP and a fused Pallas TPU kernel.
+"""Memory-lean LayerNorm with a custom VJP.
 
-Two concerns, one op:
-
-- **Memory**: plain autodiff through an f32-upcast LayerNorm makes XLA save
-  f32 normalized intermediates per call — for ViT-B @384 that is six
-  f32[L, B, 577, 768] residual tensors (~7.6 GB at batch 64, the dominant
-  term in the OOM budget; see BENCH_NOTES.md). The custom VJP saves only the
-  original-dtype input plus scale and recomputes mean/var/x̂ in the backward.
-- **Bandwidth**: XLA lowers the f32-upcast chain to ~5 HBM-level passes per
-  call (measured ~0.6 ms per [64, 577, 768] LN on v5e). The Pallas kernels
-  keep the f32 statistics entirely in VMEM: one HBM read + one write in the
-  forward, two reads + one write (plus the [D] param-grad accumulators) in
-  the backward.
+Plain autodiff through an f32-upcast LayerNorm makes XLA save f32
+normalized intermediates per call — for ViT-B @384 that is six
+f32[L, B, 577, 768] residual tensors (~7.6 GB at batch 64). The custom VJP
+saves only the original-dtype input plus scale and recomputes mean/var/x̂
+in the backward.
 
 Forward math is identical to the naive version (f32 statistics, HF eps
-1e-12) — the parity suite pins it against torch. Off-TPU the reference jnp
-implementation runs instead (same math, no interpreter overhead).
+1e-12) — the parity suite pins it against torch.
 """
 
 from __future__ import annotations
@@ -24,39 +16,14 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_ROW_BLOCK = 256
-
-
-def _use_pallas() -> bool:
-    """Measured on v5e (BENCH_NOTES.md): the fused Pallas LN is SLOWER in
-    context than XLA's lowering — the opaque custom call blocks XLA from
-    fusing the LN into adjacent producers/consumers, and the flatten/pad
-    copies outweigh the in-kernel pass savings (202 → 180 img/s at b64).
-    The kernel stays available (CXR_LN_PALLAS=1) for future hardware, but
-    the XLA path is the measured default."""
-    import os
-    if os.environ.get("CXR_LN_PALLAS", "0") != "1":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
 def layer_norm(x: jax.Array, scale: jax.Array, bias: jax.Array,
                eps: float) -> jax.Array:
     """LayerNorm over the last axis in f32, output in x.dtype."""
-    return _forward(x, scale, bias, eps)
+    return _forward_xla(x, scale, bias, eps)
 
-
-# ---------------------------------------------------------------------------
-# Reference (XLA) implementation — CPU path and numerics oracle
-# ---------------------------------------------------------------------------
 
 def _forward_xla(x, scale, bias, eps):
     x32 = x.astype(jnp.float32)
@@ -86,138 +53,12 @@ def _bwd_xla(eps, x, scale, dy):
             dbias.astype(scale.dtype))
 
 
-# ---------------------------------------------------------------------------
-# Pallas TPU kernels (f32 statistics resident in VMEM)
-# ---------------------------------------------------------------------------
-
-def _ln_fwd_kernel(x_ref, s_ref, b_ref, y_ref, *, eps: float):
-    x = x_ref[...].astype(jnp.float32)             # [r, D]
-    mean = jnp.mean(x, axis=-1, keepdims=True)
-    xc = x - mean
-    var = jnp.mean(xc * xc, axis=-1, keepdims=True)
-    xhat = xc * jax.lax.rsqrt(var + eps)
-    y = xhat * s_ref[...].astype(jnp.float32) + b_ref[...].astype(jnp.float32)
-    y_ref[...] = y.astype(y_ref.dtype)
-
-
-def _ln_bwd_kernel(x_ref, s_ref, dy_ref, dx_ref, ds_ref, db_ref, *,
-                   eps: float):
-    i = pl.program_id(0)
-    x = x_ref[...].astype(jnp.float32)             # [r, D]
-    dy = dy_ref[...].astype(jnp.float32)           # [r, D]
-    mean = jnp.mean(x, axis=-1, keepdims=True)
-    xc = x - mean
-    var = jnp.mean(xc * xc, axis=-1, keepdims=True)
-    inv = jax.lax.rsqrt(var + eps)
-    xhat = xc * inv
-
-    g = dy * s_ref[...].astype(jnp.float32)
-    dx = (g - jnp.mean(g, axis=-1, keepdims=True)
-          - xhat * jnp.mean(g * xhat, axis=-1, keepdims=True)) * inv
-    dx_ref[...] = dx.astype(dx_ref.dtype)
-
-    # param grads accumulate across sequential row-block grid steps
-    @pl.when(i == 0)
-    def _():
-        ds_ref[...] = jnp.zeros_like(ds_ref[...])
-        db_ref[...] = jnp.zeros_like(db_ref[...])
-
-    ds_ref[...] += jnp.sum(dy * xhat, axis=0, keepdims=True)
-    db_ref[...] += jnp.sum(dy, axis=0, keepdims=True)
-
-
-def _rows(x):
-    d = x.shape[-1]
-    r = 1
-    for n in x.shape[:-1]:
-        r *= n
-    return r, d
-
-
-def _pad_rows(x2, r_pad):
-    r = x2.shape[0]
-    if r == r_pad:
-        return x2
-    return jnp.pad(x2, ((0, r_pad - r), (0, 0)))
-
-
-def _forward_pallas(x, scale, bias, eps):
-    r, d = _rows(x)
-    blk = min(_ROW_BLOCK, ((r + 7) // 8) * 8)
-    r_pad = ((r + blk - 1) // blk) * blk
-    x2 = _pad_rows(x.reshape(r, d), r_pad)
-    y = pl.pallas_call(
-        functools.partial(_ln_fwd_kernel, eps=eps),
-        grid=(r_pad // blk,),
-        in_specs=[
-            pl.BlockSpec((blk, d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((blk, d), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((r_pad, d), x.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=_interpret(),
-    )(x2, scale.reshape(1, d), bias.reshape(1, d))
-    return y[:r].reshape(x.shape)
-
-
-def _bwd_pallas(eps, x, scale, dy):
-    r, d = _rows(x)
-    blk = min(_ROW_BLOCK, ((r + 7) // 8) * 8)
-    r_pad = ((r + blk - 1) // blk) * blk
-    x2 = _pad_rows(x.reshape(r, d), r_pad)
-    dy2 = _pad_rows(dy.reshape(r, d), r_pad)   # zero pad ⇒ zero param grads
-    dx, ds, db = pl.pallas_call(
-        functools.partial(_ln_bwd_kernel, eps=eps),
-        grid=(r_pad // blk,),
-        in_specs=[
-            pl.BlockSpec((blk, d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((blk, d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((blk, d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((r_pad, d), x.dtype),
-            jax.ShapeDtypeStruct((1, d), jnp.float32),
-            jax.ShapeDtypeStruct((1, d), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=_interpret(),
-    )(x2, scale.reshape(1, d), dy2)
-    return (dx[:r].reshape(x.shape), ds[0].astype(scale.dtype),
-            db[0].astype(scale.dtype))
-
-
-# ---------------------------------------------------------------------------
-# custom VJP wiring (residuals: original-dtype input + scale only)
-# ---------------------------------------------------------------------------
-
-def _forward(x, scale, bias, eps):
-    if _use_pallas():
-        return _forward_pallas(x, scale, bias, eps)
-    return _forward_xla(x, scale, bias, eps)
-
-
 def _fwd(x, scale, bias, eps):
-    return _forward(x, scale, bias, eps), (x, scale)
+    return _forward_xla(x, scale, bias, eps), (x, scale)
 
 
 def _bwd(eps, res, dy):
     x, scale = res
-    if _use_pallas():
-        return _bwd_pallas(eps, x, scale, dy)
     return _bwd_xla(eps, x, scale, dy)
 
 

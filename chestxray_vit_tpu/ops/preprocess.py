@@ -7,7 +7,7 @@ device computation: the crop, centered square padding, PIL-parity
 antialiased bilinear resize, grayscale→RGB broadcast, and processor
 normalization all happen on-device from the raw u8 canvas.
 
-TPU-first design: the separable resize is expressed as two small matmuls
+Design: the separable resize is expressed as two small matmuls
 (out = Wy · img · Wxᵀ) so the resample rides the MXU instead of a gather
 engine, with the per-image filter weights built on the VPU. Everything is
 static-shaped: canvases are fixed [B, C, C] u8, crop windows arrive as a

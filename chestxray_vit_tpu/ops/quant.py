@@ -1,9 +1,9 @@
 """Symmetric int8 quantization primitives for the serving forward.
 
-TPU v5e's MXU runs int8×int8→int32 contractions at 2× the bf16 peak
-(394.8 vs 197 TFLOP/s), and XLA lowers
-``lax.dot_general(int8, int8, preferred_element_type=int32)`` straight to
-that path. The reference has no quantization story at all (its serving is
+XLA lowers ``lax.dot_general(int8, int8, preferred_element_type=int32)``
+to the accelerator's int8 matrix path (on the H100 the tensor cores'
+int8 rate is twice the bf16 one). The reference has no quantization
+story at all (its serving is
 unshipped, README TODO `README.md:90`); this module is the beyond-parity
 inference speed path:
 
@@ -12,9 +12,8 @@ inference speed path:
 - activations: either symmetric per-row (per-token) dynamic int8
   (`int8_matmul` — the row scale factors out of the contraction, so it
   rides the cheap f32 epilogue) or a static calibrated scalar scale
-  (`int8_matmul_static` — fully fusable, the end-to-end speed win;
-  measured int8 200 vs bf16 138 TFLOP/s on this chip);
-- matmul: int8 MXU dot with int32 accumulation, rescaled in one fused
+  (`int8_matmul_static` — fully fusable);
+- matmul: int8 dot with int32 accumulation, rescaled in one fused
   elementwise epilogue.
 
 Accuracy is oracle-tested (tests/test_quant.py): quantization math against
@@ -81,11 +80,9 @@ def int8_matmul_static(x: jax.Array, qw: QuantizedWeight,
 
     The dynamic path's per-row amax is a *reduction* over the activation,
     which XLA cannot fuse into the producer — it costs one extra
-    full-tensor HBM pass per matmul, which on this chip outweighs the
-    1.46× int8 MXU rate at ViT widths (measured: BENCH_NOTES "Round 3:
-    int8"). With a static scalar scale the quantize step is pure
-    elementwise: it fuses into the producing op's epilogue, the
-    activation crosses HBM once (as int8), and the MXU dividend is kept.
+    full-tensor HBM pass per matmul. With a static scalar scale the
+    quantize step is pure elementwise: it fuses into the producing op's
+    epilogue and the activation crosses HBM once (as int8).
     Values beyond the calibration range saturate at ±127 by design.
 
     x_scale: f32 scalar (from :func:`models.quantized.calibrate_vit_scales`).

@@ -2,9 +2,8 @@
 
 Beyond the reference (speed/quality-tradeoff serving accelerator, opt-in
 via ``Predictor(tome_r=...)``): each transformer layer merges the ``r``
-most similar token pairs, so later layers process fewer tokens — the
-measured step time is ~linear in token count (BENCH_NOTES "Round 3:
-token merging"), which makes the upside real on this chip.
+most similar token pairs, so later layers process fewer tokens (step
+time on the H100 not measured yet).
 
 Algorithm (reimplemented from Bolya et al., "Token Merging: Your ViT But
 Faster", arXiv:2210.09461 — no code copied): tokens split into
@@ -14,7 +13,7 @@ highest-scoring proposals merge source→destination with a size-weighted
 mean; sizes accumulate so repeated merges stay means over the original
 tokens. The CLS token is protected (never a source) and stays at
 position 0. All output shapes are static (r is a compile-time constant);
-only gather/scatter indices are data-dependent — TPU/jit-friendly.
+only gather/scatter indices are data-dependent — jit-friendly.
 
 Deliberate deviation, documented: no proportional attention (the paper's
 optional log-size attention bias; ~0.1-0.2 pt effect off-the-shelf) —
@@ -108,13 +107,12 @@ def merge_tokens(x: jax.Array, sizes: jax.Array, unm_idx: jax.Array,
     ones initially). Returns ``(x', sizes')`` with S' = S - r tokens,
     ordered [kept-A..., B...].
 
-    TPU formulation: the whole merge (keep-gather + source→destination
-    scatter-add + reorder) is ONE one-hot routing matmul. Dynamic
-    gather/scatter on [B, S, D] lowers to serialized loops on TPU —
-    measured ~1.7 ms/layer at ViT-B serving shapes, which ate the entire
-    token-reduction dividend; the routing matrix is a few-hundred-square
-    bf16 matmul the MXU does in ~µs (BENCH_NOTES "Round 3: token
-    merging"). Only tiny int32 [B, S/2] scatters remain (slot indices).
+    Formulation: the whole merge (keep-gather + source→destination
+    scatter-add + reorder) is ONE one-hot routing matmul instead of a
+    dynamic gather/scatter on [B, S, D] (chosen on the previous
+    accelerator, where gather/scatter serialized; ROADMAP Speed item 8
+    re-measures it on the H100). Only tiny int32 [B, S/2] scatters remain
+    (slot indices).
     """
     b, s, _ = x.shape
     na = (s + 1) // 2
@@ -140,10 +138,8 @@ def tome_merge(x: jax.Array, metric: jax.Array, sizes: jax.Array, r: int
     *bipartite_soft_matching(metric, r))`` — pinned by
     tests/test_tome.py): ``lax.top_k`` instead of a full argsort, kept-A
     slots from a mask cumsum instead of index sorting/gathers, and ONE
-    bf16 routing matrix shared by the token and size reductions. The
-    gather/scatter formulation measured ~1.7 ms/layer at serving shapes;
-    this path's overhead is the routing matmul (~µs on the MXU) plus two
-    tiny int32 scatters.
+    bf16 routing matrix shared by the token and size reductions; this
+    path's overhead is the routing matmul plus two tiny int32 scatters.
     """
     b, s, _ = x.shape
     na = (s + 1) // 2
@@ -209,8 +205,8 @@ def tome_merge_packed(x: jax.Array, metric: jax.Array, sizes: jax.Array,
     """One WITHIN-SEGMENT ToMe step for NaViT-style packed sequences.
 
     Same matching/merge math as :func:`tome_merge` with two packed-specific
-    rules (beyond the reference; extends the measured train lever to the
-    packed variable-resolution path — BASELINE configs[4]):
+    rules (beyond the reference; extends the train lever to the packed
+    variable-resolution path):
 
     - cross-segment similarities are masked to −inf, so merges never mix
       different images' tokens (the reason PackedTrainer used to reject

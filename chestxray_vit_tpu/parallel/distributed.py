@@ -3,7 +3,7 @@
 The reference is strictly single-host (one ``xmp.spawn`` over 8 local cores,
 pyc L515); its only cross-process synchronization is the
 ``xm.rendezvous('download_only_once')`` barrier pair
-(/root/reference/ViT-Training.py:35-49). TPU-native scaling instead runs one
+(/root/reference/ViT-Training.py:35-49). Scaling here instead runs one
 process per host over a global mesh: ``jax.distributed.initialize`` wires the
 hosts, shardings place the global batch, and barriers come from
 ``multihost_utils`` (SURVEY §5 'Distributed communication backend').
@@ -36,7 +36,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
     Joins a cluster only when one is explicitly configured (arguments,
     ``JAX_COORDINATOR_ADDRESS``, or ``CXR_MULTIHOST=1`` to opt into JAX's
-    metadata-based auto-detection on TPU pods) — unconditional
+    cluster auto-detection, e.g. under SLURM) — unconditional
     auto-detection can BLOCK forever waiting for a coordinator on boxes
     whose environment half-describes a cluster."""
     import os

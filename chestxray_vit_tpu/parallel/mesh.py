@@ -1,11 +1,11 @@
 """Device mesh and sharding layout.
 
-The reference scales with one forked process per TPU core
+The reference scales with one forked process per accelerator core
 (``xmp.spawn``, /root/reference/ViT-Training.py:170; pyc L515) and lets
-torch_xla all-reduce gradients. TPU-native equivalent: a single process with
-one ``jax.sharding.Mesh`` whose ``data`` axis carries the global batch; under
-``jit``, XLA inserts the gradient psum over ICI automatically from the
-shardings. ``fsdp`` and ``tensor`` axes are first-class so larger models can
+torch_xla all-reduce gradients. Here: a single process with one
+``jax.sharding.Mesh`` whose ``data`` axis carries the global batch; under
+``jit``, XLA inserts the gradient all-reduce (NCCL over NVLink on GPUs)
+automatically from the shardings. ``fsdp`` and ``tensor`` axes are first-class so larger models can
 shard parameters/activations without touching the step functions.
 """
 
@@ -23,20 +23,19 @@ from chestxray_vit_tpu.config import MeshConfig
 def build_mesh(cfg: Optional[MeshConfig] = None,
                devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
     """Construct the (data, fsdp, tensor) mesh — with a leading ``dcn``
-    axis when ``cfg.dcn_data > 1`` (multi-slice training over DCN).
+    axis when ``cfg.dcn_data > 1`` (data parallelism across device groups
+    joined by a slower network).
 
-    ``data = -1`` consumes all remaining devices. On a single chip this
+    ``data = -1`` consumes all remaining devices. On a single card this
     degenerates to a 1×1×1 mesh and the same step functions still compile —
-    the single-device path the driver benches and the multi-device path are
-    one code path.
+    the single-device path and the multi-device path are one code path.
 
-    Multi-slice layout: devices are grouped so that each slice owns one
-    index of the ``dcn`` axis and the ``data``/``fsdp``/``tensor`` axes lie
-    entirely within a slice (ICI). The batch is additionally split over
-    ``dcn``, so the only collective crossing the slow DCN fabric is the
-    per-step gradient all-reduce. On real multi-slice hardware the
-    grouping follows each device's ``slice_index``; on homogeneous device
-    sets (CPU test meshes) it falls back to order-based grouping.
+    Devices are laid out in ``jax.devices()`` order (the cards of one host
+    are joined all to all, so the order carries no topology). With
+    ``dcn > 1`` each consecutive block of devices owns one index of the
+    ``dcn`` axis and the ``data``/``fsdp``/``tensor`` axes lie within it;
+    the batch is additionally split over ``dcn``, so the only collective
+    crossing groups is the per-step gradient all-reduce.
     """
     cfg = cfg or MeshConfig()
     devices = list(devices if devices is not None else jax.devices())
@@ -51,14 +50,7 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
     if dcn == 1:
         arr = np.asarray(devices).reshape(data, cfg.fsdp, cfg.tensor)
         return Mesh(arr, cfg.axis_names)
-    slice_ids = {getattr(d, "slice_index", None) for d in devices}
-    if None not in slice_ids and len(slice_ids) == dcn:
-        from jax.experimental import mesh_utils
-        arr = mesh_utils.create_hybrid_device_mesh(
-            (data, cfg.fsdp, cfg.tensor), (dcn, 1, 1), devices=devices)
-        arr = np.asarray(arr).reshape(dcn, data, cfg.fsdp, cfg.tensor)
-    else:
-        arr = np.asarray(devices).reshape(dcn, data, cfg.fsdp, cfg.tensor)
+    arr = np.asarray(devices).reshape(dcn, data, cfg.fsdp, cfg.tensor)
     return Mesh(arr, ("dcn",) + tuple(cfg.axis_names))
 
 

@@ -2,7 +2,7 @@
 
 The reference lists attention maps as an unshipped TODO
 (/root/reference/README.md:90 "Add attention map visualization"); the rebuild
-ships it (BASELINE.json configs[3]). Two standard ViT explanation methods:
+ships it. Two standard ViT explanation methods:
 
 - **attention rollout** (Abnar & Zuidema 2020): fuse heads per layer, add the
   residual identity, row-normalize, and chain-multiply across layers; the

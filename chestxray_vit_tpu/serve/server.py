@@ -27,11 +27,9 @@ from chestxray_vit_tpu.serve.inference import Predictor
 # NIH natives are 1024² PNGs (< 1 MB); anything past this is not an X-ray
 MAX_BODY_BYTES = 32 * 1024 * 1024
 
-# Measured-best serving recipe (value-pinned in tests/test_config.py):
-# int8-static + tome + batch 32 = 70.4 req/s e2e on this box vs 44.2 for
-# bf16 at the same batch (BENCH_NOTES "Serving e2e: host-path fixes
-# measured"); below b16 the accel stack LOSES to bf16 (57.1 vs 63.0 at
-# b8) — the preset pins the b>=32 shape where it pays.
+# Serving accelerators as one preset (value-pinned in tests): int8-static +
+# tome at batch 32, the shape auto_accel_config picks (crossover set on the
+# previous accelerator; not re-measured on the H100 yet).
 SERVE_PRESETS = {
     "fast_serve": {"batch_size": 32, "quantize": "static", "tome_r": 16,
                    "tome_schedule": "decreasing"},
@@ -164,12 +162,11 @@ def serve(predictor: Predictor, host: str = "127.0.0.1", port: int = 8000,
 
 
 def auto_accel_config(batch_size: int) -> dict:
-    """Measured-crossover auto-pick (VERDICT r4 #5): the int8-static +
-    token-merging stack is measured FASTER end-to-end only at batch >=
-    32 (70.4 vs bf16's 44.2 req/s at b32); at b8 it LOSES to plain bf16
-    (57.1 vs 63.0 — dispatch-dominated small batches). BENCH_NOTES
-    'Serving e2e: host-path fixes measured'. Returns the config
-    overrides the measurements recommend at this batch size."""
+    """Batch-size auto-pick of the serving accelerators: the int8-static +
+    token-merging stack at batch >= 32, plain bf16 below (small batches
+    are dispatch-dominated). The b32 crossover was set on the previous
+    accelerator and is not re-measured on the H100 yet (ROADMAP Speed
+    item 6). Returns the config overrides for this batch size."""
     if batch_size >= 32:
         return {"quantize": "static", "tome_r": 16,
                 "tome_schedule": "decreasing"}
@@ -180,12 +177,9 @@ def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-dir", required=True)
     ap.add_argument("--preset", choices=("fast_serve",), default=None,
-                    help="measured-best serving recipe as one flag "
-                         "(VERDICT r4 #2): fast_serve = batch 32 + int8 "
-                         "static + tome r=16 decreasing — the accel stack "
-                         "pays at b>=32 (BENCH_NOTES 'host-path fixes "
-                         "measured': 70.4 req/s vs bf16-b32's 44.2; below "
-                         "b16 plain bf16 wins, keep the defaults there). "
+                    help="serving accelerators as one flag: fast_serve = "
+                         "batch 32 + int8 static + tome r=16 decreasing "
+                         "(see auto_accel_config for the batch crossover). "
                          "Explicit flags override preset values")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
@@ -194,12 +188,12 @@ def main(argv: Optional[list] = None) -> int:
                     help="where crop/pad/resize runs (inference.Predictor)")
     ap.add_argument("--quantize", nargs="?", const="dynamic",
                     choices=("dynamic", "static"), default=None,
-                    help="serve the int8 MXU forward (per-channel int8 "
+                    help="serve the int8 forward (per-channel int8 "
                          "weights — models/quantized.py). 'dynamic' "
                          "(the default when the flag is bare): per-token "
                          "activation scales, accuracy-safest; 'static': "
-                         "calibrated per-site scales — the fused path "
-                         "that keeps the 1.46x int8 MXU rate end-to-end")
+                         "calibrated per-site scales — the fully fusable "
+                         "path")
     ap.add_argument("--data-parallel", type=int, default=0,
                     help="shard each micro-batch over the first N devices "
                          "(0/1 = single-device; requires batch-size "
@@ -224,8 +218,8 @@ def main(argv: Optional[list] = None) -> int:
                          "noise fallback without the warning (or persist "
                          "real-data scales once with `cli quantize`)")
     ap.add_argument("--auto-accel", action="store_true",
-                    help="pick the forward stack by the measured batch "
-                         "crossover (BENCH_NOTES 'Serving e2e'): int8 "
+                    help="pick the forward stack by batch size "
+                         "(auto_accel_config): int8 "
                          "static + tome r=16 decreasing at batch >= 32, "
                          "plain bf16 below. Mutually exclusive with "
                          "explicit --quantize/--tome-r/--preset")
@@ -266,10 +260,9 @@ def main(argv: Optional[list] = None) -> int:
                              "files — pass PNG/JPEG paths or 'synthetic'")
         else:
             calibration = [open(p, "rb").read() for p in ns.calibration]
-    if ns.compilation_cache:
-        from chestxray_vit_tpu.utils.compilation_cache import (
-            enable_compilation_cache)
-        enable_compilation_cache(ns.compilation_cache)
+    from chestxray_vit_tpu.utils.compilation_cache import (
+        enable_compilation_cache)
+    enable_compilation_cache(ns.compilation_cache)
     predictor = Predictor.from_model_dir(ns.model_dir,
                                          batch_size=ns.batch_size,
                                          placement=ns.placement,

@@ -8,6 +8,10 @@ replicate. Here there is a single logical checkpoint (Orbax
 CheckpointManager, async, works against local paths and gs:// URIs alike)
 whose train-state is params + optimizer moments + step + RNG + data cursor,
 so resume is exact.
+
+Orbax is imported on first use (a save, a restore, or a query of a
+directory that holds checkpoints), so training with saving off and serving
+from in-memory params run without it installed.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ from typing import Any, Dict, Optional
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
 
 from chestxray_vit_tpu.train.steps import TrainState
 
@@ -66,6 +69,29 @@ class CheckpointManager:
         self.directory = os.path.abspath(os.path.expanduser(directory)) \
             if "://" not in directory else directory
         self.metric_for_best = metric_for_best
+        self._save_total_limit = save_total_limit
+        self._greater_is_better = greater_is_better
+        self._mgr_obj = None
+
+    @property
+    def _mgr(self):
+        """The Orbax manager, built (and Orbax imported) on first use."""
+        if self._mgr_obj is None:
+            self._mgr_obj = self._build_manager()
+        return self._mgr_obj
+
+    def _started(self) -> bool:
+        """Whether there can be checkpoints to query: a manager exists, or
+        the directory does (a remote URI always counts)."""
+        return (self._mgr_obj is not None or "://" in self.directory
+                or os.path.isdir(self.directory))
+
+    def _build_manager(self):
+        import orbax.checkpoint as ocp
+
+        metric_for_best = self.metric_for_best
+        greater_is_better = self._greater_is_better
+        save_total_limit = self._save_total_limit
         if metric_for_best:
             # a save's metrics dict can legitimately lack the key (eval not
             # run at that step, or the value was NaN and got cleaned) — the
@@ -102,7 +128,7 @@ class CheckpointManager:
                 enable_async_checkpointing=True,
                 create=True,
             )
-        self._mgr = ocp.CheckpointManager(self.directory, options=options)
+        return ocp.CheckpointManager(self.directory, options=options)
 
     # -- save ---------------------------------------------------------------
 
@@ -112,6 +138,8 @@ class CheckpointManager:
              extra: Optional[Dict[str, Any]] = None) -> None:
         """Async save; returns immediately, serialization overlaps training
         (the write barrier is :meth:`wait`)."""
+        import orbax.checkpoint as ocp
+
         meta = {"cursor": (cursor or DataCursor()).to_dict(),
                 "extra": extra or {}}
         clean_metrics = {k: float(v) for k, v in (metrics or {}).items()
@@ -126,18 +154,19 @@ class CheckpointManager:
         )
 
     def wait(self) -> None:
-        self._mgr.wait_until_finished()
+        if self._mgr_obj is not None:
+            self._mgr_obj.wait_until_finished()
 
     # -- restore ------------------------------------------------------------
 
     def latest_step(self) -> Optional[int]:
-        return self._mgr.latest_step()
+        return self._mgr.latest_step() if self._started() else None
 
     def best_step(self) -> Optional[int]:
-        return self._mgr.best_step()
+        return self._mgr.best_step() if self._started() else None
 
     def all_steps(self):
-        return self._mgr.all_steps()
+        return self._mgr.all_steps() if self._started() else []
 
     def restore(self, step: Optional[int], template: TrainState
                 ) -> tuple[TrainState, DataCursor, Dict[str, Any]]:
@@ -147,6 +176,8 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        import orbax.checkpoint as ocp
+
         restored = self._mgr.restore(
             step,
             args=ocp.args.Composite(
@@ -160,8 +191,9 @@ class CheckpointManager:
         return state, cursor, meta.get("extra", {})
 
     def close(self) -> None:
-        self._mgr.wait_until_finished()
-        self._mgr.close()
+        if self._mgr_obj is not None:
+            self._mgr_obj.wait_until_finished()
+            self._mgr_obj.close()
 
 
 def _to_savable(state: TrainState) -> Dict[str, Any]:
@@ -191,6 +223,8 @@ def save_model(directory: str, params: Any, config_json: str,
                classes: Optional[list] = None) -> None:
     """Write final inference weights (params-only, msgpack-free Orbax tree)
     plus config + class vocabulary, the analogue of HF ``save_model()``."""
+    import orbax.checkpoint as ocp
+
     directory = os.path.abspath(os.path.expanduser(directory))
     os.makedirs(directory, exist_ok=True)
     ckptr = ocp.StandardCheckpointer()
@@ -205,6 +239,8 @@ def save_model(directory: str, params: Any, config_json: str,
 
 
 def load_model(directory: str, params_template: Any):
+    import orbax.checkpoint as ocp
+
     directory = os.path.abspath(os.path.expanduser(directory))
     ckptr = ocp.StandardCheckpointer()
     params = ckptr.restore(os.path.join(directory, "params"),

@@ -1,4 +1,4 @@
-"""Packed variable-resolution trainer (BASELINE configs[4], end-to-end).
+"""Packed variable-resolution trainer.
 
 Subclasses :class:`Trainer` to train over NaViT-style packed sequences:
 several variable-resolution images share each ``seq_len``-token sequence,

@@ -13,30 +13,28 @@ from typing import Optional
 
 from chestxray_vit_tpu.config import ModelConfig
 
-# bf16 peak FLOP/s by TPU generation (public spec sheets).
-_PEAKS = (
-    ("v5 lite", 197e12),
-    ("v5e", 197e12),
-    ("v6e", 918e12),
-    ("v6", 918e12),
-    ("v5p", 459e12),
-    ("v5", 459e12),
-    ("v4", 275e12),
-    ("v3", 123e12),
-)
-_DEFAULT_PEAK = 197e12
+# Dense bf16 tensor-core peak FLOP/s, keyed by the exact
+# ``jax.Device.device_kind`` string. Source: NVIDIA H100 Tensor Core GPU
+# data sheet, SXM5 part, 989.4 TFLOP/s bf16 without sparsity, at the
+# card's full 700 W power limit. A kind that is not listed has no peak:
+# MFU against a guessed peak would be a made-up number.
+PEAK_BF16_FLOPS = {
+    "NVIDIA H100 80GB HBM3": 989e12,
+}
 
 
 def chip_peak_flops(device_kind: Optional[str] = None) -> float:
-    """Peak bf16 FLOP/s for a device kind (default: the local chip)."""
+    """Peak dense bf16 FLOP/s of ``device_kind`` (default: the first local
+    device). Raises KeyError for a device kind the table does not know."""
     if device_kind is None:
         import jax
         device_kind = jax.devices()[0].device_kind
-    kind = device_kind.lower()
-    for key, peak in _PEAKS:
-        if key in kind:
-            return peak
-    return _DEFAULT_PEAK
+    try:
+        return PEAK_BF16_FLOPS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no bf16 peak known for device kind {device_kind!r}; add it to "
+            f"utils/flops.PEAK_BF16_FLOPS with its source") from None
 
 
 def model_flops_per_image(cfg: ModelConfig, fwd_only: bool = False) -> float:
@@ -63,7 +61,7 @@ def packed_flops_per_sequence(cfg: ModelConfig, seq_len: int,
                               fwd_only: bool = False) -> float:
     """Analytic matmul FLOPs for ONE packed sequence of ``seq_len`` tokens
     (train/packed_trainer.py throughput accounting). Counts the full
-    seq_len² attention area the segment-masked kernel actually executes —
+    seq_len² attention area the segment-masked attention executes —
     cross-segment products are computed then masked — so packed MFU is
     executed-math utilization, an upper bound on useful-math MFU."""
     s = seq_len

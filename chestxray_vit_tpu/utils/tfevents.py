@@ -2,7 +2,7 @@
 
 The reference gets ``report_to='tensorboard'`` through HF Trainer, which on
 a torch stack writes via ``torch.utils.tensorboard`` (pyc L447/L453). A
-TPU-native serving/training image should not need torch to log scalars, so
+JAX serving/training image should not need torch to log scalars, so
 this module owns the tfevents wire format directly: TFRecord framing
 (length, masked CRC32C, payload, masked CRC32C) around hand-encoded
 ``tensorflow.Event`` protos. Only the three fields TensorBoard needs for

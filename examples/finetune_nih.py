@@ -40,8 +40,8 @@ def main() -> int:
                          "when the hub is reachable)")
     ap.add_argument("--preset", default="version_b",
                     choices=["version_a", "version_b", "fast_finetune"],
-                    help="fast_finetune = the measured-best throughput "
-                         "recipe (b36, remat, tome r=16 decreasing); "
+                    help="fast_finetune = the token-merging recipe "
+                         "(b36, remat, tome r=16 decreasing); "
                          "validate merged runs per init (README "
                          "'Accelerated training') or set "
                          "train.tome_warmup")
@@ -129,7 +129,7 @@ def main() -> int:
     print(f"[finetune] train: {train_metrics}")
     print(f"[finetune] eval:  {eval_metrics}")
 
-    # accelerated-eval fidelity gates (VERDICT r3 next #4c): the int8 /
+    # accelerated-eval fidelity gates: the int8 /
     # token-merging eval paths re-score the SAME validation split on the
     # just-trained params; the AUC deltas are the real-data numbers the
     # synthetic-weight oracle tests structurally cannot produce.
@@ -174,7 +174,7 @@ def main() -> int:
         within = band[0] <= auc <= band[1] + 0.02
         print(f"[finetune] mean AUC {auc:.4f} — "
               f"{'WITHIN' if within else 'OUTSIDE'} the published "
-              f"ViT/ChestX-ray14 band {band} (BASELINE.md)")
+              f"ViT/ChestX-ray14 band {band}")
         if ns.expect_band and not within:
             print("[finetune] --expect-band: failing the run")
             return 3

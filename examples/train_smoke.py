@@ -1,5 +1,5 @@
 """Smallest end-to-end example: synthetic NIH bucket → fine-tune → eval →
-predictions with attention maps. Runs anywhere (CPU or TPU), no data needed.
+predictions with attention maps. Runs anywhere (CPU or GPU), no data needed.
 
     python examples/train_smoke.py
 """

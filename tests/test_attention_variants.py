@@ -1,13 +1,13 @@
-"""Fused-QKV projection and the forward-only inference kernel: both are
-pure perf variants and must be numerically invisible."""
+"""Fused-QKV projection: a pure perf variant that must be numerically
+invisible."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from chestxray_vit_tpu.config import ModelConfig
 from chestxray_vit_tpu.models import vit
-from chestxray_vit_tpu.ops import flash_attention as fa
 
 
 def _cfg(**kw):
@@ -35,21 +35,20 @@ def test_fused_qkv_matches_split_projections():
                                    atol=1e-5, rtol=1e-4)
 
 
-def test_inference_kernel_matches_training_kernel():
-    ks = jax.random.split(jax.random.key(3), 3)
-    q, k, v = (jax.random.normal(kk, (2, 3, 77, 64)) for kk in ks)
-    a = fa.flash_attention_inference(q, k, v)
-    b = fa.flash_attention(q, k, v)
-    c = fa.attention_xla(q, k, v)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_allclose(np.asarray(a), np.asarray(c),
-                               atol=1e-5, rtol=1e-5)
+@pytest.mark.parametrize("policy", ["full", "mlp", "attn", "attn_mlp",
+                                    "dots"])
+def test_remat_policies_leave_gradients_unchanged(policy):
+    """Every remat policy (the checkpoint names it saves or drops:
+    'attn_heads', 'mlp_hidden') recomputes the same function."""
+    cfg0, cfg1 = _cfg(), _cfg(remat=True, remat_policy=policy)
+    params = vit.init_params(jax.random.key(0), cfg0)
+    images = jax.random.normal(jax.random.key(1), (2, 32, 32, 3))
 
+    def loss(p, cfg):
+        return jnp.sum(vit.apply(p, images, cfg) ** 2)
 
-def test_inference_kernel_multi_block():
-    ks = jax.random.split(jax.random.key(5), 3)
-    q, k, v = (jax.random.normal(kk, (1, 2, 300, 64)) for kk in ks)
-    a = fa.flash_attention_inference(q, k, v, None, 128)
-    c = fa.attention_xla(q, k, v)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(c),
-                               atol=1e-5, rtol=1e-5)
+    g0 = jax.grad(loss)(params, cfg0)
+    g1 = jax.grad(loss)(params, cfg1)
+    for x, y in zip(jax.tree.leaves(g0), jax.tree.leaves(g1)):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y),
+                                   atol=1e-5, rtol=1e-4)

@@ -153,19 +153,19 @@ def test_model_config_validates_tiling():
 
 def test_fast_finetune_preset_pins_measured_best_recipe():
     """--preset fast_finetune is the measured-best train recipe as one
-    flag (VERDICT r4 next #2): version_b's optimization surface + the
+    flag: version_b's optimization surface + the
     chip-measured throughput levers, value-pinned like version_a/b."""
     from chestxray_vit_tpu.config import fast_finetune_config, parse_cli
 
     cfg = fast_finetune_config()
     b = version_b_config()
-    # the throughput levers (BENCH_NOTES "tome_schedule=decreasing")
+    # the throughput levers
     assert cfg.model.tome_r == 16
     assert cfg.model.tome_schedule == "decreasing"
     assert cfg.model.remat is True
     assert cfg.train.batch_size_per_core == 36
     # the measured init-sensitivity rescue ships with the preset
-    # (BENCH_NOTES "Dense-warmup rescue": r16 bad init 0.8174 -> 0.9919
+    # (README "Quality": r16 bad init 0.8174 -> 0.9919
     # with a 37.5% dense warmup); fraction of total steps
     assert cfg.train.tome_warmup == 0.375
     # the optimization surface stays version_b's (pyc L438-L456)

@@ -92,7 +92,7 @@ def test_eval_tome_tracks_full_eval(tmp_path, fake, quantize):
 
 
 def test_static_calibration_cached_per_params_version(tmp_path, fake):
-    """Static scales are calibrated ONCE per params version (ADVICE r3):
+    """Static scales are calibrated ONCE per params version:
     repeated eval calls at the same step reuse the identical int8 tree
     regardless of which batch is offered first, so quantized eval metrics
     cannot drift with eval-batch ordering; a new step recalibrates."""

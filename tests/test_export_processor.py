@@ -1,4 +1,4 @@
-"""preprocessor_config.json parity (VERDICT r2 missing #1): the reference
+"""preprocessor_config.json parity: the reference
 passes tokenizer=processor to Trainer (pyc L465-L472), so its save_model()
 output dir loads end-to-end in HF INCLUDING preprocessing. Our export and
 save_model must match: ViTImageProcessor.from_pretrained(dir) works and

@@ -1,4 +1,4 @@
-"""Fixed-seed golden-run regression (VERDICT r2 next #6a).
+"""Fixed-seed golden-run regression.
 
 The oracle tests pin individual components; this pins the COMPOSITION: a
 20-step deterministic fine-tune on the synthetic NIH bucket through the
@@ -65,8 +65,8 @@ def _run(tmp_path, tome_r: int = 0, tome_schedule: str = "constant",
 
 def _agreement_stats(tr):
     """Pinned logit-agreement of the accelerated eval paths vs the dense
-    eval on the SAME trained params (VERDICT r3 next #4b: drift in
-    eval_quantize/eval_tome must fail CI, not just stay 'above 0.999')."""
+    eval on the SAME trained params (drift in eval_quantize/eval_tome
+    must fail CI, not just stay 'above 0.999')."""
     base, _, _ = tr._forward_all(tr.bundle.val)
 
     tr.cfg.train.eval_quantize = "static"
@@ -103,8 +103,8 @@ def test_golden_trajectory(tmp_path):
 
 def test_golden_tome_trajectory(tmp_path):
     """The token-merging TRAIN step (model.tome_r) has its own pinned
-    trajectory — the fidelity gate for training with merging on
-    (VERDICT r3 next #2): the merged model must keep learning on the
+    trajectory — the fidelity gate for training with merging on: the
+    merged model must keep learning on the
     same data at a pinned loss path, and any silent numerics drift in
     the differentiable merge fails here."""
     assert GOLDEN.get("tome_losses"), \
@@ -123,7 +123,7 @@ def test_golden_tome_trajectory(tmp_path):
 
 def test_golden_tome_decreasing_trajectory(tmp_path):
     """The decreasing schedule (the measured-best train recipe —
-    BENCH_NOTES 'tome_schedule=decreasing') gets its own pinned
+    README "Quality") gets its own pinned
     trajectory: schedule-math or routing drift fails here even when the
     constant-schedule pin stays green."""
     assert GOLDEN.get("tome_dec_losses"), \
@@ -144,8 +144,8 @@ def test_golden_tome_decreasing_trajectory(tmp_path):
 
 def test_golden_deep_stack_trajectory(tmp_path):
     """32-layer (ViT-H-depth) fidelity anchor under a CLAMPED decreasing
-    schedule (VERDICT r4 weak #6: the depth-scaling claims rested on
-    clamp-floor throughput rows with no quality evidence at any depth).
+    schedule (depth-scaling claims need quality evidence at depth, not
+    just throughput).
     tome_r=1 over 32 layers budgets 32 merges against only 16 mergeable
     tokens (img 64/16 -> 17 tokens), so the per-layer feasibility clamp
     binds mid-stack — exactly the regime of the ViT-H r=8 and ViT-L r=32

@@ -1,5 +1,5 @@
-"""High-res @512 and ViT-L configs (BASELINE configs[2] and [4]): pos-embed
-interpolation, blocked attention at 1025 tokens, remat training step."""
+"""High-res @512 and ViT-L configs: pos-embed interpolation and the remat
+training step (attention at 1025 tokens: tests/test_attention.py)."""
 
 import numpy as np
 import pytest
@@ -9,7 +9,6 @@ import jax.numpy as jnp
 
 from chestxray_vit_tpu.config import Config, ModelConfig, TrainConfig, vit_large_config
 from chestxray_vit_tpu.models import vit
-from chestxray_vit_tpu.ops.flash_attention import attention_xla, flash_attention
 
 
 def test_interpolate_pos_embed_shapes(rng):
@@ -72,17 +71,6 @@ def test_adapt_params_to_512(rng):
     x = jnp.asarray(rng.standard_normal((1, 512, 512, 3)), jnp.float32)
     logits = vit.apply(adapted, x, cfg512)
     assert logits.shape == (1, 3) and bool(jnp.isfinite(logits).all())
-
-
-def test_blocked_attention_1025_tokens(rng):
-    """1025 tokens (not a multiple of 128 → padded to 1152 with masking) —
-    the @512 blocked-attention case, small head count for test speed."""
-    q, k, v = (jnp.asarray(rng.standard_normal((1, 1, 1025, 64)),
-                           jnp.float32) for _ in range(3))
-    out = flash_attention(q, k, v)
-    ref = attention_xla(q, k, v)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=1e-5, rtol=1e-5)
 
 
 def test_vit_large_config_remat_train_step(rng):

@@ -63,7 +63,7 @@ def test_mixup_trains_and_differs_from_unmixed(rng):
 def test_mixup_label_convexity(rng):
     """Mixed labels are per-sample λ_i-convex combinations of the batch
     and its roll-by-one partner (Zhang et al.'s per-sample formulation,
-    ADVICE r3; checked through the loss: identical images force the loss
+    checked through the loss: identical images force the loss
     to depend only on mixed labels). BCE is affine in the labels, so each
     row's loss must lie between its two λ∈{0,1} endpoints — the batch
     loss between the means of the row-wise minima and maxima."""

@@ -1,4 +1,4 @@
-"""REAL multi-process PACKED trainer test (VERDICT r2 next #2): two
+"""REAL multi-process PACKED trainer test: two
 jax.distributed processes drive PackedTrainer.train() through host-sharded
 packing streams and must reproduce, per step, the losses of an in-process
 simulation that packs the SAME two host shards and assembles the same

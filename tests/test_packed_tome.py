@@ -1,4 +1,4 @@
-"""Within-segment token merging on the packed path (VERDICT r4 next #7):
+"""Within-segment token merging on the packed path:
 ``ops.tome.tome_merge_packed`` + ``models.packed.apply_packed_tome`` +
 the ``model.tome_r`` dispatch in the packed train step / PackedTrainer.
 

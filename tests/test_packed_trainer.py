@@ -1,6 +1,5 @@
 """PackedTrainer end-to-end on the synthetic bucket: variable-resolution
-NIH images packed into shared sequences, trained and evaluated packed
-(BASELINE configs[4] as a full training path)."""
+NIH images packed into shared sequences, trained and evaluated packed."""
 
 import io
 

@@ -1,5 +1,5 @@
 """The HARD synthetic task behind the token-merging quality A/B
-(data/testing.render_array_dataset; VERDICT r4 next #1): the fixture must
+(data/testing.render_array_dataset): the fixture must
 be deterministic, correctly labelled, and carry a real (but subtle)
 per-class signal — the properties the measured quality table rests on."""
 

@@ -1,8 +1,7 @@
-"""CI gate at the recommended token-merging budget (VERDICT r4 next #1
-done-criterion: "a CI gate at the recommended budget, not just r=2").
+"""CI gate at the recommended token-merging budget.
 
-These tests pin the CONCLUSIONS of BENCH_NOTES "Round 5: convergence-level
-quality A/B" against the committed chip-measured data in
+These tests pin the CONCLUSIONS of the convergence-level quality A/B
+(README "Quality") against the committed data in
 BENCH_QUALITY_AB.jsonl, and tie the shipped `fast_finetune` preset to the
 budget that data recommends. If cells are re-run and the data stops
 supporting the documented bands, or the preset drifts away from the
@@ -99,7 +98,7 @@ def test_headline_budgets_learning_floor_and_init_sensitivity(cells):
     and the measured init-sensitivity (>=5 pt spread across cells at
     each budget) must persist in the data — it is the documented reason
     merged training is a throughput tool, not the final-model default.
-    If new cells erase the spread, the guidance in BENCH_NOTES/README
+    If new cells erase the spread, the guidance in README "Quality"/README
     ('init-sensitive at every headline budget') is stale and must be
     revisited WITH the preset."""
     for r in (16, 32):
@@ -115,7 +114,7 @@ def test_headline_budgets_learning_floor_and_init_sensitivity(cells):
 
 def test_decreasing_schedule_is_a_quality_lever(cells):
     """At the headline budgets the decreasing schedule must beat constant
-    by >=5 pts at equal steps (BENCH_NOTES finding #3)."""
+    by >=5 pts at equal steps (README "Quality" finding #3)."""
     for r in (16, 32):
         dec = max(c["best_auroc"] for c in _best(
             cells, tome_r=r, schedule="decreasing", steps=2400))
@@ -126,7 +125,7 @@ def test_decreasing_schedule_is_a_quality_lever(cells):
 
 def test_gap_lives_in_the_weights_not_the_eval(cells):
     """Merged-eval vs dense-eval of the SAME trained weights agree within
-    2.5 pts wherever both tracks were recorded (BENCH_NOTES finding #1:
+    2.5 pts wherever both tracks were recorded (README "Quality" finding #1:
     'train merged, serve dense' does not recover dense quality)."""
     tracked = [c for c in cells if "best_dense_auroc" in c]
     assert tracked, "no cells carry the dense-eval track"
@@ -147,7 +146,7 @@ def _warmup_cells():
 
 
 def test_dense_warmup_rescues_the_bad_init():
-    """The dense-warmup treatment (train.tome_warmup — BENCH_NOTES
+    """The dense-warmup treatment (train.tome_warmup — README "Quality"
     'Dense-warmup rescue'): on the bad-mode init (r32_dec init_seed=1,
     which flattens at ~0.82 without warmup), warming up dense through
     the takeoff window must recover to >=0.95 best avg_auroc and beat
@@ -171,7 +170,7 @@ def test_dense_warmup_rescues_the_bad_init():
 def test_dense_warmup_does_not_cost_the_good_init():
     """Warmup on the GOOD init (r32_dec init_seed=0, 0.9503 without
     warmup) must not cost quality — measured it LIFTS the good mode to
-    dense parity (0.9967 vs dense anchors 0.992–0.996, BENCH_NOTES
+    dense parity (0.9967 vs dense anchors 0.992–0.996, README "Quality"
     'Dense-warmup rescue'). Gate: the warmup cell beats its no-warmup
     counterpart and clears 0.98."""
     warm = [c for c in _warmup_cells()
@@ -193,7 +192,7 @@ def test_dense_warmup_rescues_the_preset_budget():
     the bad-mode init (r16_dec init_seed=1 flattened at 0.8174 without
     warmup), the warmup cell must reach dense-parity territory
     (>=0.98) and beat the no-warmup run by >=10 pts (measured 0.9919,
-    BENCH_NOTES 'Dense-warmup rescue'). This is the measured basis for
+    README "Quality" 'Dense-warmup rescue'). This is the measured basis for
     fast_finetune shipping tome_warmup."""
     warm = [c for c in _warmup_cells()
             if c["tome_r"] == 16 and c["schedule"] == "decreasing"
@@ -210,7 +209,7 @@ def test_dense_warmup_rescues_the_preset_budget():
 
 
 def test_dense_warmup_can_miss_a_late_takeoff():
-    """The warmup's second measured caveat (BENCH_NOTES 'Third-init
+    """The warmup's second measured caveat (README "Quality" 'Third-init
     caveat'), unified with the depth caveat into one rule: the warmup
     inherits whatever mode DENSE is in. On init_seed=2 dense itself is
     slow (takeoff ~2100, ~0.82 at 2400 steps) while the same init's
@@ -247,7 +246,7 @@ def test_dense_warmup_can_miss_a_late_takeoff():
 
 
 def test_dense_warmup_is_not_a_depth_fix():
-    """The warmup's measured precondition (BENCH_NOTES 'Depth caveat'):
+    """The warmup's measured precondition (README "Quality" 'Depth caveat'):
     it inherits whatever mode DENSE is in. At 24 layers on the too-hot
     lr=1e-3 — where dense itself floors (0.746) and no-warmup merged
     escapes (r8_dec 0.930) — adding the warmup DRAGS the merged run
@@ -283,10 +282,10 @@ def test_preset_matches_measured_recommendation(cells):
     best-case mode must exist (>=0.92 in some cell), its floor must
     clear the learning bar (>=0.79 in every cell), and among budgets
     tied on those counts the preset takes the SMALLEST (least
-    information discarded at equal measured risk — BENCH_NOTES
+    information discarded at equal measured risk — README "Quality"
     'Recommendation'). Today: r=16. And because every no-warmup budget
     is init-sensitive (>=5 pt spread), the preset must also carry a
-    dense warmup — the measured rescue (BENCH_NOTES 'Dense-warmup
+    dense warmup — the measured rescue (README "Quality" 'Dense-warmup
     rescue': within 1.8 pts of dense on every measured rescue cell,
     including the r16 bad init 0.8174 -> 0.9919)."""
     cfg = _PRESETS["fast_finetune"]()

@@ -5,6 +5,7 @@ ops/quant.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from chestxray_vit_tpu.config import ModelConfig
 from chestxray_vit_tpu.models import vit
@@ -161,3 +162,29 @@ def test_predictor_quantize_flag(tmp_path):
     b = quant.predict_arrays(grays)
     assert b.probs.shape == a.probs.shape
     assert np.abs(a.probs - b.probs).max() < 0.1
+
+
+@pytest.mark.gpu
+def test_static_int8_forward_on_gpu(gpu):
+    """XLA's int8 dot_general on the card at ViT-B/16 @384 widths: the
+    static-int8 forward tracks the f32 forward (matmuls at "highest"), and
+    the compiled program really contracts int8 operands."""
+    cfg = ModelConfig(num_classes=15)
+    params = vit.init_params(jax.random.key(0), cfg)
+    images = jax.random.normal(jax.random.key(1), (4, 384, 384, 3))
+    calib = jax.random.normal(jax.random.key(9), (4, 384, 384, 3))
+    qp = quantize_vit_params(params, calibrate_vit_scales(params, calib,
+                                                          cfg))
+    fwd = jax.jit(lambda p, x: apply_quantized(p, x, cfg))
+    assert "xi8>" in fwd.lower(qp, images).as_text()
+    q8 = np.asarray(fwd(qp, images))
+    f32_cfg = ModelConfig(num_classes=15, dtype="float32",
+                          attention_impl="xla")
+    with jax.default_matmul_precision("highest"):
+        f32 = np.asarray(jax.jit(lambda p, x: vit.apply(p, x, f32_cfg))(
+            params, images))
+    assert np.isfinite(q8).all()
+    assert np.corrcoef(q8.ravel(), f32.ravel())[0, 1] > 0.99
+    p32 = 1.0 / (1.0 + np.exp(-f32))
+    p8 = 1.0 / (1.0 + np.exp(-q8))
+    assert np.abs(p32 - p8).max() < 0.1

@@ -1,6 +1,5 @@
 """Owned tfevents writer: round-trip, CRC integrity, and torch-free
-operation of the tensorboard logging path (VERDICT r2 weak #5 — the
-reference's report_to='tensorboard', pyc L453, must not require torch)."""
+operation of the tensorboard logging path."""
 
 import builtins
 import glob

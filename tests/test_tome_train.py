@@ -1,4 +1,4 @@
-"""Token merging during TRAINING (model.tome_r — VERDICT r3 next #2).
+"""Token merging during TRAINING (model.tome_r).
 
 The serving merge math is oracle-pinned in tests/test_tome.py; here we
 pin the training story: gradient correctness of the routing-matmul merge
@@ -154,8 +154,8 @@ def test_trainer_trains_with_tome(tmp_path):
 
 
 def test_tome_warmup_dispatch(tmp_path):
-    """train.tome_warmup (the measured init-sensitivity rescue — BENCH_NOTES
-    'Dense-warmup rescue'): steps below the warmup boundary run the DENSE
+    """train.tome_warmup (the measured init-sensitivity rescue — README
+    "Quality"): steps below the warmup boundary run the DENSE
     step function bit-for-bit, later steps run the merged one. Proven by
     trajectory identity: a merged config with warmup >= max_steps ends at
     exactly the dense run's params; warmup=0 ends elsewhere; a partial
@@ -201,7 +201,7 @@ def test_tome_warmup_dispatch(tmp_path):
 
 def test_tome_warmup_validation(tmp_path):
     """tome_warmup fail-fasts: negative, or set without model.tome_r
-    (the silent-knob-no-op pattern is banned — VERDICT r3/r4)."""
+    (the silent-knob-no-op pattern is banned)."""
     from chestxray_vit_tpu.data.testing import build_fake_nih
     from chestxray_vit_tpu.train.trainer import Trainer
 
@@ -231,7 +231,7 @@ def test_tome_warmup_validation(tmp_path):
 
 def test_merged_floor_hint():
     """The mid-run floor check productizes the measured bad-mode
-    signature (BENCH_NOTES 'Round 5' quality A/B: the failed inits are
+    signature (README "Quality", the quality A/B: the failed inits are
     still at their starting avg_auroc floor past ~60% of the schedule).
     Pure-function behavior: fires only for merged, warmup-free training
     that shows no metric progress past the threshold fraction."""
@@ -256,7 +256,7 @@ def test_merged_floor_hint():
 
 
 def test_packed_trainer_rejects_tome_and_accel_eval(tmp_path):
-    """Fail-fast composition rules (VERDICT r3 weak #5): the packed
+    """Fail-fast composition rules: the packed
     trainer rejects the accelerated-eval knobs at construction instead
     of silently ignoring them. (model.tome_r composes since round 5 —
     see tests/test_packed_tome.py::test_packed_trainer_composes_with_tome.)"""

@@ -1,4 +1,4 @@
-"""Convergence-level quality A/B for token-merging training (VERDICT r4 #1).
+"""Convergence-level quality A/B for token-merging training.
 
 The 6.93x train headline (tome_r=32 decreasing) needs an eval-quality
 bound, not just the 20-step r=2 golden pin: the reference's whole point
@@ -188,7 +188,7 @@ def main() -> None:
     for i in range(1, steps + 1):
         state, m = (warm_step if i <= tome_warmup else step)(
             state, next_batch())
-        if i % 16 == 0:          # sync discipline (BENCH_NOTES.md)
+        if i % 16 == 0:          # bounded async queue
             loss = float(m["loss"])
         if i % eval_every == 0 or i == steps:
             loss = float(m["loss"])
